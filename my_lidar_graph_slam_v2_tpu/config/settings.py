@@ -274,7 +274,7 @@ def create_slam_from_settings(
         # The reference's default two-stage frontend match (correlative
         # search + linear-solver refinement, lidar_graph_slam_frontend.cpp:
         # 210-237) compiles into ONE device dispatch — same ops, same
-        # results, one host round trip instead of two (the TPU analog of
+        # results, one host round trip instead of two (the device analog of
         # the FPGA matcher's single-offload contract,
         # scan_matcher_correlative_fpga.cpp:272-364).  Both configs come
         # from the same settings parser as the unfused matchers, so the

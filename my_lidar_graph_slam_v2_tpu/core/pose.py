@@ -1,4 +1,4 @@
-"""SE(2) pose algebra, vectorized for TPU.
+"""SE(2) pose algebra, vectorized for the device.
 
 Re-implements the pose composition operators of the reference
 (``include/my_lidar_graph_slam/pose.hpp:155-230`` and

@@ -1,6 +1,6 @@
 """Batched SE(2) pose-graph optimization (Levenberg-Marquardt).
 
-TPU-native replacement for both reference optimizers — the self-contained
+Device replacement for both reference optimizers — the self-contained
 sparse LM (``mapping/pose_graph_optimizer_lm.cpp``) and the g2o/Cholmod
 delegate (``mapping/pose_graph_optimizer_g2o.cpp``).  Same problem
 structure: bipartite graph of local-map nodes and scan nodes; edge error
@@ -49,6 +49,10 @@ class OptimizerConfig:
     # information and fix the gauge by hard elimination of the first map
     # node instead (exactly equivalent in the limit).
     info_clip: float = 1e5
+    # Precision of the f32 contractions (jax.lax.Precision name).  "highest"
+    # keeps them in full f32; "default" lets a GPU run them as TF32 (about
+    # three decimal digits), kept only to measure that effect.
+    precision: str = "highest"
 
 
 def _edge_errors_jacobians(map_poses, scan_poses, map_idx, scan_idx, rel):
@@ -84,26 +88,29 @@ def _edge_errors_jacobians(map_poses, scan_poses, map_idx, scan_idx, rel):
     return e, Js, Je
 
 
-def _edge_blocks(map_poses, scan_poses, map_idx, scan_idx, rel, info, is_loop, loss):
+def _edge_blocks(map_poses, scan_poses, map_idx, scan_idx, rel, info, is_loop,
+                 loss, precision):
     e, Js, Je = _edge_errors_jacobians(map_poses, scan_poses, map_idx, scan_idx, rel)
-    chi2 = jnp.einsum("ei,eij,ej->e", e, info, e)
+    ein = functools.partial(jnp.einsum, precision=precision)
+    chi2 = ein("ei,eij,ej->e", e, info, e)
     w = jnp.where(is_loop > 0, loss.weight(chi2), 1.0)
     winfo = info * w[:, None, None]
-    JsT_i = jnp.einsum("eji,ejk->eik", Js, winfo)  # Js^T W
-    JeT_i = jnp.einsum("eji,ejk->eik", Je, winfo)
-    Hss = JsT_i @ Js
-    Hee = JeT_i @ Je
-    Hse = JsT_i @ Je
-    bs = -jnp.einsum("eij,ej->ei", JsT_i, e)
-    be = -jnp.einsum("eij,ej->ei", JeT_i, e)
+    JsT_i = ein("eji,ejk->eik", Js, winfo)  # Js^T W
+    JeT_i = ein("eji,ejk->eik", Je, winfo)
+    Hss = jnp.matmul(JsT_i, Js, precision=precision)
+    Hee = jnp.matmul(JeT_i, Je, precision=precision)
+    Hse = jnp.matmul(JsT_i, Je, precision=precision)
+    bs = -ein("eij,ej->ei", JsT_i, e)
+    be = -ein("eij,ej->ei", JeT_i, e)
     return Hss, Hee, Hse, bs, be, chi2, e
 
 
-def _total_error(map_poses, scan_poses, map_idx, scan_idx, rel, info, loss):
+def _total_error(map_poses, scan_poses, map_idx, scan_idx, rel, info, loss,
+                 precision):
     """Robust total error (``ComputeTotalError``, lines 418-452: the loss
     is applied to every edge here, while IRLS weights gate loops only)."""
     e, _, _ = _edge_errors_jacobians(map_poses, scan_poses, map_idx, scan_idx, rel)
-    chi2 = jnp.einsum("ei,eij,ej->e", e, info, e)
+    chi2 = jnp.einsum("ei,eij,ej->e", e, info, e, precision=precision)
     return jnp.sum(loss.loss(chi2))
 
 
@@ -143,7 +150,7 @@ def _solve_dense(n_maps, n_scans, Hss, Hee, Hse, bs, be, map_idx, scan_idx, lam)
 
 def _solve_schur(
     n_maps, n_scans, Hss, Hee, Hse, bs, be, map_idx, scan_idx,
-    pair_e1, pair_e2, lam,
+    pair_e1, pair_e2, lam, precision,
 ):
     """Schur-complement solve: eliminate scan nodes.
 
@@ -158,12 +165,13 @@ def _solve_schur(
     Hee_inv = jnp.linalg.inv(Hee_n)  # [N, 3, 3]
 
     # W_e = Hse_e * Hee(scan_e)^-1
-    W = Hse @ Hee_inv[scan_idx]
+    W = jnp.matmul(Hse, Hee_inv[scan_idx], precision=precision)
 
     # Reduced RHS: bm - sum_e W_e be(scan_e)
     bm = jax.ops.segment_sum(bs, map_idx, num_segments=n_maps)
     bm_red = bm - jax.ops.segment_sum(
-        jnp.einsum("eij,ej->ei", W, be_n[scan_idx]), map_idx, num_segments=n_maps
+        jnp.einsum("eij,ej->ei", W, be_n[scan_idx], precision=precision),
+        map_idx, num_segments=n_maps,
     )
 
     # Reduced matrix over map nodes
@@ -174,7 +182,9 @@ def _solve_schur(
     Hm = Hm.at[r, c].add(Hss)
     # Fill-in: -(W_e1) Hse_e2^T at (map_e1, map_e2) for edge pairs sharing
     # a scan node
-    fill = -(W[pair_e1] @ jnp.swapaxes(Hse[pair_e2], 1, 2))
+    fill = -jnp.matmul(
+        W[pair_e1], jnp.swapaxes(Hse[pair_e2], 1, 2), precision=precision
+    )
     rr = map_idx[pair_e1][:, None, None] * 3 + jnp.arange(3)[None, :, None]
     cc = map_idx[pair_e2][:, None, None] * 3 + jnp.arange(3)[None, None, :]
     Hm = Hm.at[rr, cc].add(fill)
@@ -192,9 +202,10 @@ def _solve_schur(
     # Back-substitute scan nodes:
     # dps_j = Hee_j^-1 (be_j - sum_{e: scan_e=j} Hse_e^T dpm(map_e))
     cross = jax.ops.segment_sum(
-        jnp.einsum("eji,ej->ei", Hse, dpm[map_idx]), scan_idx, num_segments=n_scans
+        jnp.einsum("eji,ej->ei", Hse, dpm[map_idx], precision=precision),
+        scan_idx, num_segments=n_scans,
     )
-    dps = jnp.einsum("nij,nj->ni", Hee_inv, be_n - cross)
+    dps = jnp.einsum("nij,nj->ni", Hee_inv, be_n - cross, precision=precision)
     return dpm, dps
 
 
@@ -217,13 +228,14 @@ def _optimize_core(
     lam0,
 ):
     loss = cfg.loss
+    prec = jax.lax.Precision(cfg.precision)
 
     def total(mp, sp):
-        return _total_error(mp, sp, map_idx, scan_idx, rel, info, loss)
+        return _total_error(mp, sp, map_idx, scan_idx, rel, info, loss, prec)
 
     def step(mp, sp, lam):
         Hss, Hee, Hse, bs, be, _, _ = _edge_blocks(
-            mp, sp, map_idx, scan_idx, rel, info, is_loop, loss
+            mp, sp, map_idx, scan_idx, rel, info, is_loop, loss, prec
         )
         if cfg.solver == "dense":
             dpm, dps = _solve_dense(
@@ -233,7 +245,7 @@ def _optimize_core(
         else:
             dpm, dps = _solve_schur(
                 n_maps, n_scans, Hss, Hee, Hse, bs, be, map_idx, scan_idx,
-                pair_e1, pair_e2, lam,
+                pair_e1, pair_e2, lam, prec,
             )
         return mp + dpm, sp + dps
 

@@ -12,7 +12,7 @@ Host-orchestration equivalent of ``GridMapBuilder``
 * ``construct_map_from_scans`` (lines 561-695) builds any map from a node
   range; used for local-map seeding, the latest map and the global map.
 
-TPU-native differences: local maps are fixed-shape device rasters (f32
+Device-side differences: local maps are fixed-shape device rasters (f32
 log-odds + observed mask, see ops/rasterize.py) anchored at the local map
 origin, instead of dynamically growing block grids — a local map's extent
 is travel-bounded (2.5 m travel + max usable range), so a pre-sized raster
@@ -67,10 +67,10 @@ class GridMapBuilderConfig:
     # tests/test_rasterize.py::test_incremental_latest_map).
     latest_map_incremental: bool = True
     latest_map_shift_pad: int = 256  # max inter-scan shift in cells
-    # "matmul" builds free-space count images as one-hot MXU matmuls —
-    # measured 2x faster than the scatter lowering on a v5e (15 ms vs
-    # 33 ms per 512-beam scan at 768 samples/beam) with identical counts
-    # (ops/rasterize.py:_miss_counts_matmul; scatters serialize on TPU).
+    # "matmul" builds free-space count images as one-hot matmuls
+    # (ops/rasterize.py:_miss_counts_matmul); "scatter" scatter-adds them.
+    # Both give identical counts (chip_smoke.py phase (c)); which is
+    # faster on the GPU is still to be measured.
     rasterize_backend: str = "matmul"
     # Single-host memory policy: replace each FINISHED local map's f32
     # build raster with its u8 matching form + bit-packed observed mask

@@ -1,6 +1,6 @@
 """Counting-cell occupancy raster (hit count / observation count).
 
-TPU-native equivalent of the reference's ``GridCounted`` cell family
+Device equivalent of the reference's ``GridCounted`` cell family
 (``grid_map_new/grid_counted.{hpp,cpp}``): each cell stores the number of
 hits and the number of observations, and its occupancy probability is
 their ratio ``p = hits / counts`` (``GridCounted::UpdateUnchecked``,
@@ -10,7 +10,7 @@ over [0.001, 0.999] with saturation).
 
 The reference builds this type but its live pipeline never instantiates
 it (the builder uses GridBinaryBayes throughout); it is provided here for
-cell-family completeness.  Design is TPU-first regardless: updates are
+cell-family completeness.  Design is device-first regardless: updates are
 batched scatter-adds over ``[N]`` index arrays (one fused device op per
 scan batch) instead of per-cell calls, and the u16/u8/probability views
 are dense vectorized conversions.
@@ -30,7 +30,7 @@ class GridCounted:
     State lives as two device ``int32`` planes (hits, counts); the u16
     value plane of the reference is a derived view (:meth:`values_u16`),
     not stored — recomputing it is one fused elementwise op, cheaper on
-    TPU than keeping three planes coherent per scatter.
+    device than keeping three planes coherent per scatter.
     """
 
     def __init__(self, rows: int, cols: int):

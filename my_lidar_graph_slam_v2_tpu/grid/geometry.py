@@ -4,7 +4,7 @@ Mirrors ``grid_map_new/grid_map_geometry.{hpp,cpp}`` of the reference:
 ``PositionToIndex`` floors ``(pos - offset) / resolution``; cell (row, col)
 covers the half-open square ``[offset + res*col, offset + res*(col+1))``.
 
-Unlike the reference's dynamically-resizable geometry, the TPU maps are
+Unlike the reference's dynamically-resizable geometry, the device maps are
 fixed-shape ``[rows, cols]`` rasters whose offset is chosen once at map
 creation (anchored so the expected scan content fits); this is the
 "pre-sized extent policy" for device-resident local maps (SURVEY.md section

@@ -1,6 +1,6 @@
 """Device-resident quantized local-map raster cache.
 
-TPU analogue of the reference FPGA matcher's BRAM map cache: the FPGA
+Device analogue of the reference FPGA matcher's BRAM map cache: the FPGA
 skips the (expensive) map transfer whenever the requested local map id
 and size match what is already on chip
 (``mapping/scan_matcher_correlative_fpga.cpp:254-270,589-646``).  Here

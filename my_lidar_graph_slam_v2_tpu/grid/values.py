@@ -10,7 +10,7 @@ Replicates the numeric contract of the reference
   ValueToOdds(value) * odds_obs))`` with ``odds_hit = p/(1-p)`` for
   p_hit = 0.62 and p_miss = 0.46 by default.
 
-The TPU-side maps store **log-odds (f32)** plus an observed mask instead of
+The device-side maps store **log-odds (f32)** plus an observed mask instead of
 u16, because the Bayes update is then a pure scatter-add and the per-scan
 update becomes one dense fused op.  An unknown cell behaves as log-odds 0
 (p = 0.5) on first observation, which reproduces the reference's

@@ -1,6 +1,6 @@
 """Live pose-graph view as dependency-free SVG.
 
-TPU-native replacement for the reference's ``IO::GnuplotHelper`` live
+Host-side replacement for the reference's ``IO::GnuplotHelper`` live
 viewer (``src/my_lidar_graph_slam/io/gnuplot_helper.cpp:22-77``), which
 pipes the pose graph to ``popen("gnuplot")`` every N frames with odometry
 edges in black and loop edges in blue.  Instead of a gnuplot process we

@@ -10,7 +10,7 @@ and emit a loop edge (map-local relative pose + covariance).
 
 The reference caches per-local-map coarse maps (``mPrecompMaps``); here the
 coarse rasters are cached on the LocalMap itself (device-resident HBM
-arrays — the TPU analogue of the FPGA's BRAM map cache keyed by
+arrays — the device analogue of the FPGA's BRAM map cache keyed by
 LocalMapId, ``scan_matcher_correlative_fpga.cpp:254-270``).
 """
 from __future__ import annotations
@@ -153,7 +153,7 @@ class LoopDetectorBranchBound(LoopDetectorCorrelative):
     """``LoopDetectorBranchBound`` (``loop_detector_branch_bound.cpp``):
     identical Detect flow with the branch-and-bound matcher (itself a
     dense coarse-gated sweep — see matching/branch_bound.py for why B&B
-    pruning is not used on TPU); map rasters come from the shared
+    pruning is not used on the device); map rasters come from the shared
     quantized device cache like every detector."""
 
 

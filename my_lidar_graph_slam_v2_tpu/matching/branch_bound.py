@@ -1,4 +1,4 @@
-"""Branch-and-bound scan matcher (bound-ordered block descent on TPU).
+"""Branch-and-bound scan matcher (bound-ordered block descent on device).
 
 The reference (``mapping/scan_matcher_branch_bound.cpp:111-278``) runs a
 best-first priority queue over a coarse-to-fine max pyramid (heights
@@ -7,12 +7,12 @@ enumeration at the root.  Its bounds are admissible (the pyramid stores
 window maxima), so the search returns exactly the leaf that maximizes the
 fine score subject to the per-node gates.
 
-TPU formulation (this module): a data-dependent best-first QUEUE cannot
+Device formulation (this module): a data-dependent best-first QUEUE cannot
 run inside one XLA program, but a data-dependent TRIP COUNT can — via
 ``lax.while_loop``:
 
 1. one strided sweep of the level-h pyramid scores every 2^h-cell block
-   across all thetas (one small MXU matmul) — each block's max over theta
+   across all thetas (one small matmul) — each block's max over theta
    is an admissible upper bound on every leaf inside it;
 2. blocks are sorted by bound, descending;
 3. a ``while_loop`` fine-sweeps one block per iteration (all thetas, one
@@ -21,11 +21,10 @@ run inside one XLA program, but a data-dependent TRIP COUNT can — via
    the reference's prune rule, so the returned leaf is the same gated
    argmax the dense sweep finds.
 
-Measured on a v5e at the 2.5 m loop window (1024^2 u8 map, 128 thetas):
-dense sweep 26.8 ms; this search 4.4 ms in the single-surviving-block
-case (``results_bb_pyramid.json``, scripts/eval_bb_pyramid.py) — the
-pyramid prune is worth ~6x at loop windows, the opposite of small
-frontend windows where dense-in-one-matmul wins.
+The pyramid prune pays at loop windows, where few blocks survive; at
+small frontend windows the dense sweep in one matmul is the better
+choice.  ``scripts/eval_bb_pyramid.py`` times both on the device (not
+yet measured on the GPU).
 
 Block granularity: pruning bounds are evaluated at height
 ``min(node_height_max, 3)`` (8-cell blocks) — coarser levels make the

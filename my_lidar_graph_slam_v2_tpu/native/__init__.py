@@ -3,7 +3,12 @@
 The reference's runtime is C++; the compute path here is JAX/XLA, and the
 native pieces provide (a) honest optimized-CPU baselines for the benchmark
 harness and (b) host-side hot utilities.  Built on demand with g++ -O3 and
-cached next to the sources.
+cached next to the sources (the ``.so`` files are not committed).
+
+A failed build (no g++, or a compile error) raises ``RuntimeError`` with
+the compiler's message.  The Carmen log reader then falls back to its
+pure-Python parser (io/carmen.py), so the SLAM pipeline needs no C++
+toolchain; only the benchmark's CPU baseline does.
 """
 from __future__ import annotations
 
@@ -25,7 +30,17 @@ def _build(name: str, extra_flags=()) -> Path:
             "g++", "-O3", "-march=native", "-std=c++17", "-shared", "-fPIC",
             *extra_flags, "-o", str(lib), str(src),
         ]
-        subprocess.run(cmd, check=True, capture_output=True)
+        try:
+            subprocess.run(cmd, check=True, capture_output=True, text=True)
+        except FileNotFoundError:
+            raise RuntimeError(
+                f"cannot build {lib.name}: no g++ on PATH"
+            ) from None
+        except subprocess.CalledProcessError as e:
+            raise RuntimeError(
+                f"cannot build {lib.name}: {' '.join(cmd)} failed:\n"
+                f"{e.stderr[-2000:]}"
+            ) from None
     return lib
 
 

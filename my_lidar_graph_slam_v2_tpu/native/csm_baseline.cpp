@@ -3,7 +3,7 @@
 // A faithful re-statement (not a copy) of the reference's software CSM
 // path (scan_matcher_correlative.cpp:116-368 + the sliding-window-max
 // precompute of grid_map_builder.cpp:917-1065), written as a standalone
-// C module so the benchmark harness can compare the TPU kernel against an
+// C module so the benchmark harness can compare the device kernel against an
 // honest optimized-CPU implementation of the same algorithm:
 //   - coarse map: per-cell max over a low_res x low_res window
 //   - search: theta outer loop with per-theta beam cell precompute,

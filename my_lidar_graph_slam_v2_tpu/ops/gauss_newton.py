@@ -120,8 +120,10 @@ def hessian_and_residual(
     r = 1.0 - value  # [B]
     w = mask.astype(jnp.float32)
     Jw = J * w[:, None]
-    H = Jw.T @ J
-    b = Jw.T @ r
+    # Full f32: on a GPU a default-precision f32 product may run as TF32
+    # (about three decimal digits), too coarse for the covariance.
+    H = jnp.matmul(Jw.T, J, precision=jax.lax.Precision.HIGHEST)
+    b = jnp.matmul(Jw.T, r, precision=jax.lax.Precision.HIGHEST)
     c = jnp.sum(w * r * r)
     return H, b, c
 
@@ -169,7 +171,7 @@ def gn_refine(
     H/b/cost at the trial pose) instead of the naive two (H/b at the
     current pose + cost at the trial pose).  The iterate sequence is
     identical — H/b at an accepted pose were computed by the iteration
-    that accepted it — but the sequential per-iteration depth (the TPU
+    that accepted it — but the sequential per-iteration depth (the
     latency bound of this tiny 3x3 problem) halves."""
 
     def eval_at(p):

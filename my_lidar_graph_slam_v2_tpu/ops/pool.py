@@ -1,6 +1,6 @@
 """Sliding-window max pooling for coarse-map precompute.
 
-TPU equivalent of the reference's separable monotonic-deque max filter
+Device equivalent of the reference's separable monotonic-deque max filter
 (``grid_map_builder.cpp:917-1065``, ``util.hpp:370-420``): the coarse map
 stores, at each cell, the max over the ``win x win`` window *starting* at
 that cell (extending toward higher indices), with shrinking windows at the
@@ -8,9 +8,9 @@ high edge.
 
 Implementation: per-axis doubling of shifted maxima — ``O(log win)`` dense
 elementwise ``maximum`` ops (``2^k``-wide partial maxima combined as two
-overlapping windows), instead of ``lax.reduce_window`` whose TPU lowering
-evaluates all ``win^2`` window positions (measured ~40 ms for a pair of
-1024^2 win=5 pools; this formulation is ~60x cheaper in ops).
+overlapping windows), instead of ``lax.reduce_window``, which can evaluate
+all ``win^2`` window positions (this formulation needs ~60x fewer ops at
+win=5).
 """
 from __future__ import annotations
 
@@ -60,8 +60,7 @@ def _axis_window_max(arr: jax.Array, axis: int, win: int) -> jax.Array:
 
 # NOTE: deliberately NOT @jax.jit — this op is called inside other jitted
 # computations (matcher cores, vmapped batch matchers), and a nested jit
-# becomes an XLA call boundary that blocks fusion: measured 200x+ slowdown
-# of the full correlative core on TPU v5e (round 4).  Callers jit at the
+# becomes an XLA call boundary that blocks fusion.  Callers jit at the
 # API boundary.
 def sliding_window_max2d(arr: jax.Array, win: int) -> jax.Array:
     """out[i, j] = max(arr[i:i+win, j:j+win]) with dtype-min padding

@@ -1,6 +1,6 @@
 """u8 probability-raster quantization for the HBM map cache.
 
-TPU analogue of the reference FPGA's fixed-point (6-bit) map
+Device analogue of the reference FPGA's fixed-point (6-bit) map
 discretization used by its BRAM-resident map cache
 (``mapping/scan_matcher_correlative_fpga.cpp:254-270,589-646``): cached
 local-map rasters are stored as u8 (1/4 the HBM of f32) and dequantized

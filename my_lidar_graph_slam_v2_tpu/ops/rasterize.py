@@ -1,6 +1,6 @@
 """Scan -> occupancy-map integration on device.
 
-TPU-native replacement for the reference's per-beam subpixel Bresenham +
+Device replacement for the reference's per-beam subpixel Bresenham +
 sequential odds updates (``grid_map_builder.cpp:390-494``,
 ``bresenham.cpp:58+``). Design (SURVEY.md section 7, hard part 1):
 
@@ -65,9 +65,8 @@ def integrate_scans(
 
     ``backend`` selects how the per-sample miss updates reach the raster:
 
-    * ``"scatter"`` — one ``scatter-add`` of all samples (simple, but TPU
-      scatters serialize: ~15 ms/scan at 512x768 samples).
-    * ``"matmul"`` — the free-space count image is built on the MXU as a
+    * ``"scatter"`` — one ``scatter-add`` of all samples.
+    * ``"matmul"`` — the free-space count image is built by matmuls as a
       sum of one-hot outer products (same trick as the CSM hit images,
       ops/csm.py): per sample chunk, ``onehot_rows^T @ onehot_cols`` over
       a ``crop x crop`` window anchored at the scan's sample bounding box.
@@ -241,7 +240,7 @@ def fold_shifted_deltas(
 
 
 def _miss_counts_matmul(rows, cols, valid, h, w, crop, chunk):
-    """Free-space visit counts as chunked one-hot matmuls on the MXU.
+    """Free-space visit counts as chunked one-hot matmuls.
 
     ``rows/cols/valid``: [B, K] per-sample cells.  Returns an [h, w] f32
     count image.  The one-hot operands live over a ``crop x crop`` window

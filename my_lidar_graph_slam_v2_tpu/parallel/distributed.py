@@ -1,7 +1,7 @@
 """Distributed pose-graph optimization: Schur-complement BA over psum.
 
-The multi-host/multi-chip generalization of ``graph/optimizer.py`` and the
-TPU-native replacement for the reference's single-threaded g2o solve:
+The multi-host/multi-device generalization of ``graph/optimizer.py`` and
+the device replacement for the reference's single-threaded g2o solve:
 edges are sharded across the mesh's candidate axis (grouped by scan node,
 so all edges of one scan node are colocated and the Schur fill-in pairs
 stay device-local); each device forms its partial reduced system; ``psum``
@@ -23,19 +23,24 @@ import numpy as np
 from jax.sharding import Mesh, PartitionSpec as P
 
 from ..graph.loss import LossFunction
-from ..graph.optimizer import OptimizerConfig, _bucket, _edge_blocks, _edge_errors_jacobians
+from ..graph.optimizer import (
+    OptimizerConfig,
+    _bucket,
+    _edge_blocks,
+    _total_error,
+)
 from .mesh import AXIS_CANDIDATES, to_global
 
 
 def _local_schur_step(
     n_maps, n_scans, mp, sp, map_idx, scan_idx, is_loop, rel, info,
-    pair_e1, pair_e2, lam, loss, axis,
+    pair_e1, pair_e2, lam, loss, axis, prec,
 ):
     """One LM step with device-local edge shards; returns (dpm, dps)
     replicated."""
     eye = jnp.eye(3, dtype=jnp.float32)
     Hss, Hee, Hse, bs, be, _, _ = _edge_blocks(
-        mp, sp, map_idx, scan_idx, rel, info, is_loop, loss
+        mp, sp, map_idx, scan_idx, rel, info, is_loop, loss, prec
     )
     # Global per-scan diagonal blocks and RHS (psum over edge shards)
     Hee_n = jax.lax.psum(
@@ -46,10 +51,11 @@ def _local_schur_step(
     )
     Hee_inv = jnp.linalg.inv(Hee_n)
 
-    W = Hse @ Hee_inv[scan_idx]
+    W = jnp.matmul(Hse, Hee_inv[scan_idx], precision=prec)
     bm = jax.ops.segment_sum(bs, map_idx, num_segments=n_maps)
     bm_red = bm - jax.ops.segment_sum(
-        jnp.einsum("eij,ej->ei", W, be_n[scan_idx]), map_idx, num_segments=n_maps
+        jnp.einsum("eij,ej->ei", W, be_n[scan_idx], precision=prec),
+        map_idx, num_segments=n_maps,
     )
     bm_red = jax.lax.psum(bm_red, axis)
 
@@ -58,7 +64,9 @@ def _local_schur_step(
     r = map_idx[:, None, None] * 3 + jnp.arange(3)[None, :, None]
     c = map_idx[:, None, None] * 3 + jnp.arange(3)[None, None, :]
     Hm = Hm.at[r, c].add(Hss)
-    fill = -(W[pair_e1] @ jnp.swapaxes(Hse[pair_e2], 1, 2))
+    fill = -jnp.matmul(
+        W[pair_e1], jnp.swapaxes(Hse[pair_e2], 1, 2), precision=prec
+    )
     rr = map_idx[pair_e1][:, None, None] * 3 + jnp.arange(3)[None, :, None]
     cc = map_idx[pair_e2][:, None, None] * 3 + jnp.arange(3)[None, None, :]
     Hm = Hm.at[rr, cc].add(fill)
@@ -73,20 +81,21 @@ def _local_schur_step(
 
     cross = jax.lax.psum(
         jax.ops.segment_sum(
-            jnp.einsum("eji,ej->ei", Hse, dpm[map_idx]),
+            jnp.einsum("eji,ej->ei", Hse, dpm[map_idx], precision=prec),
             scan_idx,
             num_segments=n_scans,
         ),
         axis,
     )
-    dps = jnp.einsum("nij,nj->ni", Hee_inv, be_n - cross)
+    dps = jnp.einsum("nij,nj->ni", Hee_inv, be_n - cross, precision=prec)
     return dpm, dps
 
 
-def _local_total_error(mp, sp, map_idx, scan_idx, rel, info, loss, axis):
-    e, _, _ = _edge_errors_jacobians(mp, sp, map_idx, scan_idx, rel)
-    chi2 = jnp.einsum("ei,eij,ej->e", e, info, e)
-    return jax.lax.psum(jnp.sum(loss.loss(chi2)), axis)
+def _local_total_error(mp, sp, map_idx, scan_idx, rel, info, loss, axis,
+                       prec):
+    return jax.lax.psum(
+        _total_error(mp, sp, map_idx, scan_idx, rel, info, loss, prec), axis
+    )
 
 
 def make_distributed_optimize(mesh: Mesh, cfg: OptimizerConfig, n_maps: int, n_scans: int):
@@ -95,6 +104,7 @@ def make_distributed_optimize(mesh: Mesh, cfg: OptimizerConfig, n_maps: int, n_s
     replicated."""
     axis = AXIS_CANDIDATES
     loss = cfg.loss
+    prec = jax.lax.Precision(cfg.precision)
 
     def opt(mp, sp, map_idx, scan_idx, is_loop, rel, info, p1, p2, lam0):
         def cond(state):
@@ -104,10 +114,12 @@ def make_distributed_optimize(mesh: Mesh, cfg: OptimizerConfig, n_maps: int, n_s
             mp, sp, prev_err, lam, it, done = state
             dpm, dps = _local_schur_step(
                 n_maps, n_scans, mp, sp, map_idx, scan_idx, is_loop, rel,
-                info, p1, p2, lam, loss, axis,
+                info, p1, p2, lam, loss, axis, prec,
             )
             mp2, sp2 = mp + dpm, sp + dps
-            err = _local_total_error(mp2, sp2, map_idx, scan_idx, rel, info, loss, axis)
+            err = _local_total_error(
+                mp2, sp2, map_idx, scan_idx, rel, info, loss, axis, prec
+            )
             it2 = it + 1
             # LM accept/reject (see graph/optimizer.py): revert uphill/NaN
             # steps and raise lambda instead of poisoning the iterate.
@@ -121,7 +133,9 @@ def make_distributed_optimize(mesh: Mesh, cfg: OptimizerConfig, n_maps: int, n_s
             ) | (lam2 > 1e12)
             return (mp3, sp3, err3, lam2, it2, stop)
 
-        init_err = _local_total_error(mp, sp, map_idx, scan_idx, rel, info, loss, axis)
+        init_err = _local_total_error(
+            mp, sp, map_idx, scan_idx, rel, info, loss, axis, prec
+        )
         state = (mp, sp, init_err, jnp.float32(lam0), jnp.int32(0), jnp.bool_(False))
         mp, sp, err, lam, iters, _ = jax.lax.while_loop(cond, body, state)
         return mp, sp, err, lam, iters

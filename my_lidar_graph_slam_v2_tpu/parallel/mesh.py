@@ -2,9 +2,10 @@
 
 The reference's multi-accelerator story is two FPGA IP cores driven by two
 host threads with a statically halved candidate list
-(``loop_detector_fpga_parallel.cpp:32-68``).  The TPU generalization is a
-1-D ``candidates`` mesh axis over all chips of a slice (ICI), optionally
-folded with a host axis for multi-host (DCN) runs: loop candidates and
+(``loop_detector_fpga_parallel.cpp:32-68``).  The generalization is a
+1-D ``candidates`` mesh axis over all devices, which follows the
+algorithm alone (every card of a host reaches every other at the same
+rate), spanning hosts in multi-host runs: loop candidates and
 pose-graph edges shard over it; pose solutions are psum/all-gather
 replicated.
 """

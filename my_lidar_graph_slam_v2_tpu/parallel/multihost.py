@@ -28,8 +28,8 @@ via ``jax.distributed``:
   ``process_allgather``, keeping the trajectories lockstep without
   replicated rasters.
 * **Distributed Schur LM over the global axis.**  The pose-graph solve
-  reuses ``parallel/distributed.py``: edge shards ride ICI within a host,
-  the reduced-system psum crosses DCN once per LM iteration.
+  reuses ``parallel/distributed.py``: edge shards stay on the devices of
+  a host, the reduced-system psum crosses hosts once per LM iteration.
 
 Validated by ``tests/test_multihost.py``, which spawns real
 ``jax.distributed`` processes on CPU (SURVEY section 4d recipe) and by
@@ -60,10 +60,14 @@ def init_multihost(
     num_processes: int,
     process_id: int,
     local_device_count: Optional[int] = None,
+    local_device_ids: Optional[List[int]] = None,
 ) -> None:
     """Initialize the jax.distributed runtime (call once, before any other
     backend use).  ``local_device_count`` forces N virtual CPU devices per
-    process (test/CI mode); on real TPU hosts leave it None."""
+    process (test/CI mode).  On a GPU host running several processes,
+    give each its own cards with ``local_device_ids`` (e.g. ``[k]`` for
+    process k of one-card-per-process): without it every process opens,
+    and reserves memory on, every card of the host."""
     import os
 
     if local_device_count is not None:
@@ -77,6 +81,7 @@ def init_multihost(
         coordinator_address=coordinator_address,
         num_processes=num_processes,
         process_id=process_id,
+        local_device_ids=local_device_ids,
     )
 
 
@@ -238,7 +243,7 @@ def make_routed_loop_csm(mesh: Mesh, cfg: CorrelativeConfig):
         out = batched(prob, observed, ranges, angles, mask, poses, offs,
                       s_thr, k_thr)
         # Replicate the (small) per-candidate results to every device so
-        # each host can fetch all of them: one all_gather over DCN/ICI.
+        # each host can fetch all of them: one all_gather.
         return tuple(
             jax.lax.all_gather(o, AXIS_CANDIDATES, tiled=True) for o in out
         )

@@ -31,7 +31,8 @@ def main(argv=None):
     ap.add_argument("--crop", type=int, default=320)  # reference FPGA map-window contract
     ap.add_argument("--max-scans", type=int, default=None)
     ap.add_argument("--platform", default=None,
-                    help="force jax platform (e.g. cpu)")
+                    help="force jax platform (e.g. cpu); without it the run "
+                    "needs an accelerator")
     ap.add_argument("--draw-every", type=int, default=0, metavar="N",
                     help="rewrite <output>.graph.svg every N keyframes "
                     "(live pose-graph view, like the reference's gnuplot "
@@ -44,10 +45,19 @@ def main(argv=None):
                     "(slam_launcher.cpp:288-296)")
     args = ap.parse_args(argv)
 
-    if args.platform:
-        import jax
+    import jax
 
+    if args.platform:
         jax.config.update("jax_platforms", args.platform)
+    if jax.default_backend() == "cpu" and "cpu" not in (
+        jax.config.jax_platforms or ""
+    ).split(","):
+        # JAX found no accelerator and fell back to the host; a run that
+        # was meant for the accelerator must not silently carry on there.
+        print("no accelerator found (JAX fell back to the CPU); pass "
+              "--platform cpu or set JAX_PLATFORMS=cpu to run on the host",
+              file=sys.stderr)
+        return 2
 
     # One-time-cost analog of the reference's bitstream load
     # (slam_launcher.cpp:83-107): compiled cores persist across runs.

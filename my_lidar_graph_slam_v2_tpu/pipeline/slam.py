@@ -42,6 +42,7 @@ class LidarGraphSlam:
         self._backend_thread: Optional[threading.Thread] = None
         self._backend_notify = threading.Event()
         self._backend_stop = threading.Event()
+        self._backend_error: Optional[Exception] = None
         self.inline_backend = backend is not None and getattr(
             backend, "inline", True
         )
@@ -73,6 +74,7 @@ class LidarGraphSlam:
 
     # ---- frontend entry ----------------------------------------------
     def process_scan(self, scan: ScanData, odom_pose: np.ndarray) -> bool:
+        self.raise_backend_error()
         return self.frontend.process_scan(self, scan, odom_pose)
 
     @property
@@ -210,24 +212,43 @@ class LidarGraphSlam:
             return
 
         def worker():
-            while not self._backend_stop.is_set():
-                if self._backend_notify.wait(timeout=0.05):
-                    self._backend_notify.clear()
-                    self.backend.run_step(self)
-                    self.backend_thread_steps += 1
-                    with self._lag_cond:
-                        self._backend_done_nodes = len(
-                            self.pose_graph.scan_nodes
-                        )
-                        self._lag_cond.notify_all()
-                    if self.has_pending_loop_maps():
-                        # Drain the backlog: more maps finished while this
-                        # step ran (cursor semantics — every finished map
-                        # gets its loop search)
-                        self._backend_notify.set()
+            try:
+                while not self._backend_stop.is_set():
+                    if self._backend_notify.wait(timeout=0.05):
+                        self._backend_notify.clear()
+                        self.backend.run_step(self)
+                        self.backend_thread_steps += 1
+                        with self._lag_cond:
+                            self._backend_done_nodes = len(
+                                self.pose_graph.scan_nodes
+                            )
+                            self._lag_cond.notify_all()
+                        if self.has_pending_loop_maps():
+                            # Drain the backlog: more maps finished while
+                            # this step ran (cursor semantics — every
+                            # finished map gets its loop search)
+                            self._backend_notify.set()
+            except Exception as e:  # re-raised by raise_backend_error
+                self._backend_error = e
+                # Wake every waiter: the lag throttle and the optimization
+                # wait would otherwise block on a backend that is gone.
+                self._backend_stop.set()
+                with self._lag_cond:
+                    self._lag_cond.notify_all()
+                with self._opt_cond:
+                    self._opt_running = False
+                    self._opt_cond.notify_all()
 
         self._backend_thread = threading.Thread(target=worker, daemon=True)
         self._backend_thread.start()
+
+    def raise_backend_error(self):
+        """Re-raise, in the calling thread, an exception that ended the
+        backend worker thread."""
+        if self._backend_error is not None:
+            raise RuntimeError(
+                "backend worker thread failed"
+            ) from self._backend_error
 
     def stop_backend(self):
         with self._lock:
@@ -250,6 +271,7 @@ class LidarGraphSlam:
                 if self._backend_thread is not None:
                     self._backend_thread.join()
                     self._backend_thread = None
+                self.raise_backend_error()
                 # Final passes over the finished graph, as the reference
                 # does on shutdown (lidar_graph_slam_backend.cpp:86-89) —
                 # draining any maps whose loop search is still pending

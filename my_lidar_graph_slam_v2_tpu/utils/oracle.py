@@ -1,4 +1,4 @@
-"""NumPy reference oracles used to validate the TPU kernels.
+"""NumPy reference oracles used to validate the device kernels.
 
 These re-state the reference semantics in plain NumPy and are used only by
 tests and as CPU baselines for the benchmark harness:
@@ -107,7 +107,7 @@ def integrate_scan_oracle(
 
     ``hit_points`` is an (N, 2) array of map-local hit positions that have
     already passed the usable-range filter. Out-of-raster cells are skipped
-    (the reference expands the map instead; the TPU raster is pre-sized)."""
+    (the reference expands the map instead; the device raster is pre-sized)."""
     rows, cols = values_u16.shape
     for hx, hy in hit_points:
         for cx, cy in missed_cells(sensor_xy, (hx, hy), geometry, scale):

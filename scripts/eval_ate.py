@@ -12,7 +12,7 @@ datasets/synthetic.py) with ground truth attached:
   #4 multi-candidate loop search + robust kernels (Huber / DCS)
 
 Writes results to results_ate.json and prints a table. Run with
---platform cpu off-TPU.
+--platform cpu on a host without an accelerator.
 """
 import argparse
 import json

@@ -1,10 +1,10 @@
 #!/usr/bin/env python
 """Measure: dense gated sweep vs pyramid-pruned branch-and-bound at the
 loop window (the question left open by matching/branch_bound.py's
-docstring — see VERDICT r2 'what's missing' #7).
+docstring).
 
 The reference's B&B (scan_matcher_branch_bound.cpp:151-231) prunes with
-a coarse-to-fine max pyramid.  On TPU a data-dependent best-first queue
+a coarse-to-fine max pyramid.  On the device a data-dependent best-first queue
 cannot run inside one program, so the honest comparison is against
 B&B's BEST case expressed as dense level sweeps: evaluate the top
 pyramid level (stride 2^h), assume pruning leaves exactly ONE surviving

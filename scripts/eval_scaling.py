@@ -160,7 +160,7 @@ def main():
             "scaling_efficiency = rate / (rate_1dev * n). On the virtual "
             "CPU mesh the devices share host cores, so efficiency there "
             "validates the sharded code path, not hardware scaling; the "
-            "per-chip TPU number is the meaningful absolute rate."
+            "per-GPU number is the meaningful absolute rate."
         ),
     )
     path = "results_scaling.json"

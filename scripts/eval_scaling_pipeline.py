@@ -11,8 +11,8 @@ two runs.
 
 On this CI host the processes share CPU cores, so absolute efficiency is
 an underestimate of real 2-host behaviour (each process here steals
-cycles from the other; on real pods each host has its own cores and ICI
-links) — the caveat is recorded in the artifact, as VERDICT r03 asked.
+cycles from the other; on real clusters each host has its own cores and
+links) — the caveat is recorded in the artifact.
 
 Usage::
 
@@ -144,7 +144,7 @@ def main():
             "affinity sets give each process its own cores, so the "
             "efficiency no longer includes cycle-stealing between the "
             "two workers (round-4 caveat retired); on real multi-host "
-            "TPU the frontend work is per-host and the sharded backend "
+            "runs the frontend work is per-host and the sharded backend "
             "adds capacity. ATE/trajectory identity shows the "
             "distributed pipeline computes the same answer."
         ),

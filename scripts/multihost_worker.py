@@ -11,8 +11,10 @@ Test/CI usage (spawned per process by tests/test_multihost.py):
     python scripts/multihost_worker.py --coordinator localhost:PORT \
         --num-processes 2 --process-id K --local-devices 2 --platform cpu
 
-On real TPU pods, omit --platform/--local-devices and launch one process
-per host.  Prints one JSON line with the run result.
+On GPU hosts, omit --platform/--local-devices and launch one process per
+card, each with its own card: ``--local-device-ids K`` (otherwise every
+process opens, and reserves memory on, every card of its host).  Prints
+one JSON line with the run result.
 """
 import argparse
 import json
@@ -28,6 +30,9 @@ def main():
     ap.add_argument("--num-processes", type=int, required=True)
     ap.add_argument("--process-id", type=int, required=True)
     ap.add_argument("--local-devices", type=int, default=None)
+    ap.add_argument("--local-device-ids", type=int, nargs="+", default=None,
+                    help="accelerators this process owns (one per process "
+                    "on a GPU host)")
     ap.add_argument("--platform", default=None)
     ap.add_argument("--laps", type=float, default=1.25)
     ap.add_argument("--step", type=float, default=0.3)
@@ -45,6 +50,7 @@ def main():
     multihost.init_multihost(
         args.coordinator, args.num_processes, args.process_id,
         local_device_count=args.local_devices,
+        local_device_ids=args.local_device_ids,
     )
     import jax
     import numpy as np

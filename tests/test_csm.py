@@ -154,7 +154,7 @@ def run_sweep_gather(geom, prob, observed, ranges, angles, sensor_pose,
 
 
 def test_sweep_windows_gather_matches_oracle():
-    """The per-beam window-gather sweep (ops/csm.sweep_windows, the TPU
+    """The per-beam window-gather sweep (ops/csm.sweep_windows, the
     fast path) reproduces the reference scoring semantics
     (score_function_pixel_accurate.cpp:16-58): per-beam map lookups with
     out-of-map reading unknown — including beams whose windows hang off

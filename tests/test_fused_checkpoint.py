@@ -40,38 +40,6 @@ def test_fused_matcher_matches_two_stage():
     np.testing.assert_allclose(s2.covariance, s1f.covariance, rtol=0.05, atol=1e-3)
 
 
-def test_pallas_sweep_matches_xla_interpret():
-    from my_lidar_graph_slam_v2_tpu.ops import csm
-    import my_lidar_graph_slam_v2_tpu.ops.csm_pallas as cp
-
-    rng = np.random.default_rng(5)
-    H = W = 256
-    prob = rng.uniform(0, 1, (H, W)).astype(np.float32)
-    obs = rng.uniform(0, 1, (H, W)) > 0.5
-    prob = np.where(obs, prob, 0.0)
-    B = 64
-    args = (
-        jnp.asarray(prob), jnp.asarray(obs),
-        jnp.asarray(rng.uniform(0.5, 3.0, B).astype(np.float32)),
-        jnp.asarray(np.linspace(-np.pi, np.pi, B).astype(np.float32)),
-        jnp.ones(B, bool),
-        jnp.asarray(np.float32([0.1, -0.05, 0.2])),
-        jnp.int32(-8), jnp.float32(0.01), jnp.ones(16, bool),
-        jnp.int32(-3), jnp.int32(-3), 0.05,
-        jnp.asarray(np.float32([-6.4, -6.4])),
-    )
-    kw = dict(n_theta=16, nx=10, ny=10, stride=1, crop_rows=192, crop_cols=256)
-    s1, k1 = csm.csm_sweep(*args, **kw)
-    orig = cp.sweep
-    cp.sweep = lambda *a, **k: orig(*a, **{**k, "interpret": True})
-    try:
-        s2, k2 = csm.csm_sweep(*args, backend="pallas", **kw)
-    finally:
-        cp.sweep = orig
-    np.testing.assert_allclose(np.asarray(s1), np.asarray(s2), atol=0.05)
-    np.testing.assert_array_equal(np.asarray(k1), np.asarray(k2))
-
-
 def test_checkpoint_roundtrip(tmp_path):
     from my_lidar_graph_slam_v2_tpu.datasets import synthetic
     from my_lidar_graph_slam_v2_tpu.pipeline import checkpoint

@@ -154,16 +154,18 @@ def test_png_writer(tmp_path):
 
 
 def test_settings_factory_default(tmp_path):
-    """Building from the reference's actual default settings file."""
+    """Building from the reference's default settings, as committed in
+    ``h2h/settings_lm.json`` (its launcher_settings_default.json with the
+    LM optimizer selected; the head-to-head runs use it)."""
+    from pathlib import Path
+
     from my_lidar_graph_slam_v2_tpu.config.settings import (
         create_slam_from_settings,
         load_settings,
     )
 
-    ref = "/root/reference/launcher_settings_default.json"
-    import os
-
-    settings = load_settings(ref) if os.path.exists(ref) else {}
+    repo = Path(__file__).resolve().parent.parent
+    settings = load_settings(str(repo / "h2h" / "settings_lm.json"))
     slam = create_slam_from_settings(
         settings, map_rows=256, map_cols=256, n_theta_max=64, crop=256
     )
@@ -183,6 +185,8 @@ def test_settings_factory_default(tmp_path):
     # loop detector window from the default settings (2.5 m)
     assert slam.backend.loop_detector.scan_matcher.cfg.range_x == pytest.approx(2.5)
     assert slam.backend.loop_detector.cfg.score_threshold == pytest.approx(0.55)
+    # PoseGraphOptimizerType=LM -> the Huber loss of PoseGraphOptimizerLM
+    assert slam.backend.optimizer.cfg.loss.kind == "Huber"
 
 
 def test_launcher_cli_on_synthetic_log(tmp_path):

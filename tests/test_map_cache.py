@@ -1,4 +1,4 @@
-"""Device-resident quantized map cache (grid/map_cache.py): the TPU
+"""Device-resident quantized map cache (grid/map_cache.py): the device
 analogue of the reference FPGA's BRAM map cache keyed by LocalMapId
 (``scan_matcher_correlative_fpga.cpp:254-270,589-646``)."""
 import numpy as np

@@ -415,7 +415,7 @@ def test_fine_block_prune_matches_dense_loop_window():
 
 
 def test_int8_coarse_sweep_matches_bf16():
-    """The int8-MXU coarse sweep (CorrelativeConfig.coarse_int8,
+    """The int8-matmul coarse sweep (CorrelativeConfig.coarse_int8,
     ops/csm.sweep_from_hits_int8) must reproduce the bf16 path's winner
     bit-for-bit on u8 maps — both are exact integer arithmetic; the int8
     form just moves half the hit-image bytes."""

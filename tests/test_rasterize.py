@@ -51,16 +51,16 @@ def test_integrate_matches_oracle():
         LO_MISS,
         num_samples=1024,
     )
-    prob_tpu = np.where(np.asarray(obs), 1 / (1 + np.exp(-np.asarray(lo))), 0.0)
+    prob_dev = np.where(np.asarray(obs), 1 / (1 + np.exp(-np.asarray(lo))), 0.0)
 
     ref_known = prob_ref != 0.0
-    tpu_known = prob_tpu != 0.0
+    dev_known = prob_dev != 0.0
     # Known-cell sets should agree on nearly all cells (corner grazes only)
-    mismatch = np.mean(ref_known != tpu_known)
+    mismatch = np.mean(ref_known != dev_known)
     assert mismatch < 0.01, f"known-mask mismatch rate {mismatch}"
 
-    both = ref_known & tpu_known
-    err = np.abs(prob_ref[both] - prob_tpu[both])
+    both = ref_known & dev_known
+    err = np.abs(prob_ref[both] - prob_dev[both])
     # Values agree tightly where the traversal agrees (small quantization +
     # occasional double/missing miss updates at cell corners)
     assert np.quantile(err, 0.99) < 0.05, np.quantile(err, [0.5, 0.9, 0.99])

@@ -17,9 +17,9 @@ scale:
   loop detection keeps succeeding;
 * host RSS growth over the run stays within budget.
 
-Slow tier (``-m slow``): ~10 min on CPU.  The full 1,400-keyframe
-hardware artifact lives in ``results_e2e_tpu.json`` (scripts/bench_e2e.py);
-this test is the CI-checkable scaled invariant guard.
+Slow tier (``-m slow``): ~10 min on CPU.  The full 1,400-keyframe run
+on the accelerator is ``scripts/bench_e2e.py``; this test is the
+CI-checkable scaled invariant guard.
 """
 import numpy as np
 import pytest
